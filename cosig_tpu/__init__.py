@@ -1,4 +1,4 @@
-"""cosig_tpu — a TPU-native (JAX/XLA/Pallas) Whitted ray-tracing framework.
+"""cosig_tpu — a JAX/XLA Whitted ray-tracing framework.
 
 A ground-up rebuild of the capabilities of mpoboas/cosig-raytracing
 (Unity C# + HLSL compute shader) as an idiomatic JAX framework:
@@ -6,9 +6,9 @@ A ground-up rebuild of the capabilities of mpoboas/cosig-raytracing
 * the scene becomes structure-of-arrays ``jnp`` buffers,
 * the per-pixel recursive GPU kernel becomes a pure jitted function over
   the whole image (wavefront depth loop with attenuation carry),
-* the hot intersection path is a fused Pallas megakernel over pixel tiles
-  with geometry resident in VMEM,
-* multi-chip scaling is ``shard_map`` over framebuffer tiles with
+* closest hit is a brute-force scan over triangle blocks for small scenes
+  and a per-ray BVH walk for large ones,
+* multi-device scaling is ``shard_map`` over framebuffer tiles with
   replicated geometry.
 
 Layer map (mirrors the reference's layers, reference file cited in each
@@ -16,11 +16,11 @@ module):
 
 * ``cosig_tpu.models``    — scene data model, render settings, presets
 * ``cosig_tpu.scene``     — scene-file parser, transforms, tessellation
-* ``cosig_tpu.accel``     — BVH / cluster acceleration structures
+* ``cosig_tpu.accel``     — BVH acceleration structure
 * ``cosig_tpu.ops``       — intersection, shading, RNG, camera ray-gen
-* ``cosig_tpu.render``    — renderer orchestration (XLA + Pallas backends)
+* ``cosig_tpu.render``    — renderer orchestration
 * ``cosig_tpu.parallel``  — device-mesh sharding of the framebuffer
-* ``cosig_tpu.utils``     — PNG/GIF writers, timing
+* ``cosig_tpu.utils``     — PNG/GIF writers, compile-cache placement
 * ``cosig_tpu.native``    — optional C++ components (BVH builder, GIF LZW)
 """
 

@@ -10,9 +10,8 @@ Parity reference: ``Assets/Services/BVH/BVHBuilder.cs``:
 * BFS flatten so children are contiguous and right = leftOrFirst + 1
   (:189-238); triangles reordered to match leaf order (:214-215).
 
-Output is SoA numpy ready for device upload or for deriving the flat
-cluster structure used by the Pallas megakernel
-(:mod:`cosig_tpu.accel.clusters`).
+Output is SoA numpy ready for device upload
+(:func:`cosig_tpu.ops.bvh_traverse.build_bvh_device`).
 
 A C++ implementation with identical output lives in
 ``cosig_tpu/native/src/bvh.cc``; :func:`build_bvh` dispatches to it when

@@ -1,6 +1,6 @@
 """Device-ready structure-of-arrays scene representation.
 
-This is the TPU-native replacement for the reference's GPU buffer uploads
+This is the JAX replacement for the reference's GPU buffer uploads
 (``Assets/Services/RayTracer.cs:396-403,455-499``): instead of three
 ``ComputeBuffer``s + ~25 uniforms, the scene compiles into two pytrees:
 

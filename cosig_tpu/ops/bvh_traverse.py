@@ -9,9 +9,7 @@ the slowest ray in the batch drains its stack, with finished lanes
 masked. O(log T) work per ray instead of the brute-force oracle's O(T),
 so the renderer switches the XLA backend to this walk for large scenes;
 the brute-force scan (:func:`cosig_tpu.ops.intersect.closest_hit_brute`)
-remains the oracle for tests, and the Pallas packet traversal remains
-the TPU fast path (per-ray dynamic stacks are divergence-hostile there —
-SURVEY.md section 7, hard part #1).
+remains the oracle for tests.
 
 Beyond the reference: children are visited near-first (entry-distance
 ordered at push time) instead of the reference's blind right-then-left
@@ -213,7 +211,7 @@ def render_jit_bvh(scene, bvh_dev, params, cfg, pixel_tile: int = 8192,
     """XLA render with the BVH walk as the closest-hit routine.
 
     ``with_rays`` returns (image, live-ray count) with the same honest
-    counting as every other backend (trace_xla.trace_sample)."""
+    counting as the brute-force path (trace_xla.trace_sample)."""
     from cosig_tpu.ops import trace_xla
 
     ch = functools.partial(closest_hit_bvh, bvh_dev)

@@ -21,6 +21,7 @@ from typing import Tuple
 import jax.numpy as jnp
 
 from cosig_tpu.ops import rng
+from cosig_tpu.ops.intersect import normalize
 
 F = jnp.float32
 
@@ -80,12 +81,7 @@ def generate_rays(
         u = ((px + ox) / F(width) - F(0.5)) * F(2.0) * half_w
         v = ((py + oy) / F(height) - F(0.5)) * F(2.0) * half_h
         o_cam = jnp.stack([u, v, jnp.broadcast_to(cam_distance, u.shape)], axis=-1)
-        # Direction is the constant (0,0,-1); the 0*u term keeps a data
-        # dependence so XLA does not constant-fold the whole ray bundle
-        # (works around a TPU fusion-pass compiler crash observed when the
-        # direction operand folds to a literal).
-        zero = u * F(0.0)
-        d_cam = jnp.stack([zero, zero, zero - F(1.0)], axis=-1)
+        d_cam = jnp.broadcast_to(jnp.array([0.0, 0.0, -1.0], F), o_cam.shape)
     else:
         # compute:291-294, 312-313, 329-333
         half_h = cam_distance * jnp.tan(jnp.deg2rad(fov_deg) * F(0.5))
@@ -98,11 +94,11 @@ def generate_rays(
             axis=-1,
         )
         pixel_pos = jnp.stack([u, v, jnp.zeros_like(u)], axis=-1)
-        d_cam = _normalize(pixel_pos - o_cam)
+        d_cam = normalize(pixel_pos - o_cam)
 
-    # Ray transform camera -> object space (compute:339-340). Component-wise
-    # in the Pallas kernel's exact operation order (see trace_pallas.py) so
-    # the two backends generate bit-identical rays.
+    # Ray transform camera -> object space (compute:339-340). Written out
+    # component-wise rather than as a matrix product, which a GPU may run
+    # in TF32.
     m = cam_to_obj
     ocx, ocy, ocz = o_cam[..., 0], o_cam[..., 1], o_cam[..., 2]
     dcx, dcy, dcz = d_cam[..., 0], d_cam[..., 1], d_cam[..., 2]
@@ -114,7 +110,7 @@ def generate_rays(
         ],
         axis=-1,
     )
-    direction = _normalize(
+    direction = normalize(
         jnp.stack(
             [
                 m[0, 0] * dcx + m[0, 1] * dcy + m[0, 2] * dcz,
@@ -126,7 +122,3 @@ def generate_rays(
     )
     return origin, direction
 
-
-def _normalize(v):
-    inv = F(1.0) / jnp.sqrt(jnp.sum(v * v, axis=-1, keepdims=True))
-    return v * inv

@@ -1,5 +1,5 @@
-"""Ray-primitive intersection kernels (pure jnp; shared by the XLA oracle
-and reused inside Pallas kernels).
+"""Ray-primitive intersection (pure jnp; shared by the brute-force scan,
+the BVH walk and the analytic mode).
 
 Parity reference:
 
@@ -9,8 +9,8 @@ Parity reference:
 * AABB slab test: ``compute:199-216``.
 * Analytic unit-sphere / unit-box intersection: the reference's dead CPU
   oracle path ``Assets/Services/BVH/HittableObjects.cs:83-108,182-224`` —
-  offered here as a live non-tessellated geometry mode (a better fit for
-  TPU: pure math, no tree).
+  offered here as a live non-tessellated geometry mode (pure math, no
+  tree).
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 F = jnp.float32
 
@@ -46,60 +45,18 @@ def _cross(a, b):
 
 
 def normalize(v):
-    # inv = 1/sqrt, then multiply — the exact formulation the Pallas kernel
-    # uses, so both paths normalize bit-identically.
-    inv = F(1.0) / jnp.sqrt(jnp.sum(v * v, axis=-1, keepdims=True))
-    return v * inv
+    # The squared length is written out, not jnp.sum(v * v, axis=-1): with
+    # a reduce, XLA:GPU can turn some normalizations into Triton fusions
+    # and others into loop fusions of the same computation, and its kernel
+    # deduplication then launches the Triton kernel with the loop fusion's
+    # launch dimensions (CUDA_ERROR_INVALID_VALUE; jax 0.9.0, H100).
+    sq = v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]
+    return v * (F(1.0) / jnp.sqrt(sq))[..., None]
 
 
 def reflect(i, n):
     """HLSL reflect: i - 2*dot(i,n)*n."""
     return i - F(2.0) * _dot(i, n)[..., None] * n
-
-
-def plucker_constants_host(v0, v1, v2, dtype=np.float32):
-    """Per-triangle Plücker/edge constants, host side (numpy fp32).
-
-    For ray (o, d) with moment w = o x d, the signed edge volume of edge
-    P->Q is V(P,Q) = d . (P x Q) + w . (Q - P) — LINEAR in (d, w). The ray
-    pierces the triangle iff V(B,C), V(C,A), V(A,B) share a sign, with
-    barycentrics u = V(C,A)/S, v = V(A,B)/S, S = VA+VB+VC = d . n
-    (n = unnormalized geometric normal) and t = (n.A - n.o) / S. Same hit
-    test and epsilon semantics as the reference's Möller-Trumbore
-    (compute:153-179) at ~55 flops/pair instead of ~90 (|S| == |MT det|).
-
-    Returns dict of [T, ...] arrays: n (3), n_dot_a (1), and d-/w-
-    coefficients (3 each) for VA/VB/VC.
-
-    The manual-xyz cross products below define the CANONICAL component
-    order; the traced twin in :func:`moller_trumbore` and the kernel
-    constant packer (accel/clusters.py) must keep the identical order so
-    precomputed and on-the-fly constants agree bitwise."""
-    a = np.asarray(v0, dtype)
-    b = np.asarray(v1, dtype)
-    c = np.asarray(v2, dtype)
-
-    def cross(p, q):
-        return np.stack(
-            [
-                p[:, 1] * q[:, 2] - p[:, 2] * q[:, 1],
-                p[:, 2] * q[:, 0] - p[:, 0] * q[:, 2],
-                p[:, 0] * q[:, 1] - p[:, 1] * q[:, 0],
-            ],
-            axis=1,
-        ).astype(dtype)
-
-    n = cross((b - a).astype(dtype), (c - a).astype(dtype))
-    return {
-        "n": n,
-        "n_dot_a": np.sum(n * a, axis=1, dtype=dtype),
-        "va_d": cross(b, c),
-        "va_w": (c - b).astype(dtype),
-        "vb_d": cross(c, a),
-        "vb_w": (a - c).astype(dtype),
-        "vc_d": cross(a, b),
-        "vc_w": (b - a).astype(dtype),
-    }
 
 
 def moller_trumbore(o, d, v0, v1, v2):
@@ -109,11 +66,15 @@ def moller_trumbore(o, d, v0, v1, v2):
     Returns (valid [N, B], t [N, B], u [N, B], v [N, B]); t is INF where
     invalid.
 
-    Internally the Plücker/edge-volume formulation (see
-    :func:`plucker_constants_host` for the math and the canonical op
-    order) — same test and epsilons as the reference's Möller-Trumbore,
-    cheaper per pair; all render paths share the arithmetic order so they
-    agree to the ULP."""
+    Internally the Plücker/edge-volume formulation: for ray (o, d) with
+    moment w = o x d, the signed edge volume of edge P->Q is
+    V(P,Q) = d . (P x Q) + w . (Q - P) — LINEAR in (d, w). The ray pierces
+    the triangle iff V(B,C), V(C,A), V(A,B) share a sign, with barycentrics
+    u = V(C,A)/S, v = V(A,B)/S, S = VA+VB+VC = d . n (n = unnormalized
+    geometric normal) and t = (n.A - n.o) / S. Same hit test and epsilon
+    semantics as the reference's Möller-Trumbore (compute:153-179) at ~55
+    flops/pair instead of ~90 (|S| == |MT det|); every closest-hit path
+    shares this arithmetic order, so they agree to the ULP."""
     dx, dy, dz = d[:, None, 0], d[:, None, 1], d[:, None, 2]
     ox, oy, oz = o[:, None, 0], o[:, None, 1], o[:, None, 2]
     # Ray moment w = o x d (canonical component order).

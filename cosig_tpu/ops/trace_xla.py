@@ -1,8 +1,8 @@
 """Pure-XLA wavefront Whitted tracer — the framework's oracle path.
 
 This is the reference's per-pixel recursive GPU kernel
-(``Assets/Shaders/BVHRayTracing.compute:273-511``) restructured the
-TPU-native way (SURVEY.md section 7, step 2):
+(``Assets/Shaders/BVHRayTracing.compute:273-511``) restructured as one
+array program (SURVEY.md section 7, step 2):
 
 * one batched computation over all pixels (SPMD over the pixel grid is an
   array axis, not threads);
@@ -54,8 +54,7 @@ def trace_sample(
 ):
     """Trace one AA sample for a batch of pixels -> (color [N, 3],
     rays [N]): per-pixel color and the live-ray count (primary/secondary
-    rays alive at each bounce + shadow rays actually cast), mirroring the
-    kernels' honest counting (kernel_core.bounce_core state row 16).
+    rays alive at each bounce + shadow rays actually cast).
 
     Follows compute:296-473 statement-for-statement (see shade.py for the
     preserved quirks)."""
@@ -237,7 +236,7 @@ def render_image(
 ):
     """Render frame rows [row_offset, row_offset+rows) -> [rows, W, 3] f32,
     row 0 at the bottom of the global image; with ``with_rays`` returns
-    (image, live-ray count) — the same honest counting as the kernels.
+    (image, live-ray count).
 
     ``rows``/``row_offset`` support framebuffer sharding: the projection
     plane always uses the GLOBAL cfg.width/cfg.height, only the rendered

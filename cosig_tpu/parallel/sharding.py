@@ -1,8 +1,8 @@
 """Multi-chip rendering: shard the framebuffer over a device mesh.
 
 The reference is single-process single-GPU; its only parallelism is one
-thread per pixel (SURVEY.md section 2, parallelism inventory). The TPU-native
-scaling story (SURVEY.md section 5, last two rows):
+thread per pixel (SURVEY.md section 2, parallelism inventory). The
+multi-device scaling story here (SURVEY.md section 5, last two rows):
 
 * geometry + materials are tiny (~130 KB/scene) -> **replicated**;
 * the framebuffer is sharded over a 1-D mesh of row bands (the pixel
@@ -47,8 +47,7 @@ def render_sharded(
     cfg: StaticConfig,
     mesh: Mesh,
 ):
-    """Render with the framebuffer sharded over ``mesh``'s first axis
-    (XLA oracle path).
+    """Render with the framebuffer sharded over ``mesh``'s first axis.
 
     Returns a global [H, W, 3] array (sharded across devices; convert with
     ``np.asarray`` to gather to host). Semantics identical to the
@@ -78,93 +77,6 @@ def render_sharded(
 
     img = shard_fn(scene, params, offsets)
     return img[: cfg.height]
-
-
-def render_sharded_pallas(
-    cset,
-    params: FrameParams,
-    cfg: StaticConfig,
-    mesh: Mesh,
-    interpret: bool = False,
-    tile: tuple = None,
-):
-    """Framebuffer-sharded render through the Pallas megakernel: each chip
-    runs the fused kernel over its row band (geometry replicated, zero
-    in-frame collectives). Returns (image [H, W, 3], total rays)."""
-    from cosig_tpu.ops import trace_pallas
-
-    axis = mesh.axis_names[0]
-    n = mesh.devices.size
-    if tile is None:
-        c_pad = int(cset.aabb_t.shape[1])
-        from cosig_tpu.accel import clusters as _cl
-
-        tile = (
-            (trace_pallas.TILE_H, trace_pallas.TILE_W)
-            if c_pad <= _cl.CULL_BLOCK
-            else (16, 16)
-        )
-    # Band height: multiple of the tile rows so shards tile cleanly.
-    th = tile[0]
-    local_h = -(-cfg.height // (n * th)) * th
-    offsets = jnp.arange(n, dtype=jnp.float32) * local_h
-
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(), P(), P(axis)),
-        out_specs=(P(axis), P(axis)),
-        check_vma=False,
-    )
-    def shard_fn(cset_rep, params_rep, offset):
-        img, rays = trace_pallas.render_clusters(
-            cset_rep, params_rep, cfg,
-            interpret=interpret, tile=tile,
-            rows=local_h, row_offset=offset[0],
-        )
-        return img, rays.reshape(1)
-
-    img, rays = shard_fn(cset, params, offsets)
-    return img[: cfg.height], jnp.sum(rays)
-
-
-def render_sharded_wavefront(
-    cset,
-    params: FrameParams,
-    cfg: StaticConfig,
-    mesh: Mesh,
-    interpret: bool = False,
-):
-    """Framebuffer-sharded render through the wavefront backend: each chip
-    runs the full per-bounce pipeline (primary stage, compaction, prefix-
-    ladder bounce stages) over its row band — geometry replicated, zero
-    in-frame collectives, compaction entirely chip-local. Returns
-    (image [H, W, 3], total rays)."""
-    from cosig_tpu.ops import trace_wavefront
-
-    axis = mesh.axis_names[0]
-    n = mesh.devices.size
-    # Band height: multiple of the primary block rows so shards tile cleanly.
-    bh, _ = trace_wavefront._primary_block(max(1, cfg.aa_samples))
-    local_h = -(-cfg.height // (n * bh)) * bh
-    offsets = jnp.arange(n, dtype=jnp.float32) * local_h
-
-    @functools.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(), P(), P(axis)),
-        out_specs=(P(axis), P(axis)),
-        check_vma=False,
-    )
-    def shard_fn(cset_rep, params_rep, offset):
-        img, rays = trace_wavefront.render_wavefront(
-            cset_rep, params_rep, cfg,
-            interpret=interpret, rows=local_h, row_offset=offset[0],
-        )
-        return img, rays.reshape(1)
-
-    img, rays = shard_fn(cset, params, offsets)
-    return img[: cfg.height], jnp.sum(rays)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "mesh"))

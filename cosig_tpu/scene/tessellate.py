@@ -33,7 +33,7 @@ F32 = np.float32
 
 @dataclass
 class TriangleSoA:
-    """Structure-of-arrays triangle soup (the TPU-native GPUTriangle)."""
+    """Structure-of-arrays triangle soup (the JAX form of GPUTriangle)."""
 
     v0: np.ndarray  # [T, 3] f32
     v1: np.ndarray  # [T, 3]

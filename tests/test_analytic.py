@@ -96,44 +96,6 @@ def test_analytic_box_mode():
     assert np.isfinite(img_a).all() and img_a.max() > 0.2
 
 
-def _mixed_scene():
-    """Mesh triangle + analytic sphere + analytic box, one light."""
-    s = _sphere_scene()
-    s.transformations.append(
-        CompositeTransformation(
-            [TransformElement.translation((4.0, -2.0, -2.0)),
-             TransformElement.scale((2, 2, 2))]
-        )
-    )
-    s.boxes = [BoxDescription(3, 0)]
-    return s
-
-
-@pytest.mark.parametrize("backend", ["pallas", "wavefront"])
-def test_analytic_pallas_matches_xla(backend):
-    """The in-kernel analytic fold (kernel_core) must match the XLA
-    analytic closest-hit to reduction-order ULPs (silhouette singles
-    allowed, same as the triangle paths)."""
-    s = _mixed_scene()
-    st = cosig_tpu.RenderSettings(max_depth=2, analytic_primitives=True)
-    ref = Renderer(backend="xla").render(s, st)
-    img = Renderer(backend=backend).render(s, st)
-    d = np.abs(img - ref).max(axis=2)
-    assert (d > 1e-3).mean() < 0.005
-    assert np.sqrt(((img - ref) ** 2).mean()) < 1e-3
-    assert img.max() > 0.2  # lit content
-
-
-def test_analytic_pallas_debug_depth_matches_xla():
-    s = _mixed_scene()
-    st = cosig_tpu.RenderSettings(debug_mode=1, analytic_primitives=True)
-    ref = Renderer(backend="xla").render(s, st)
-    img = Renderer(backend="wavefront").render(s, st)
-    d = np.abs(img - ref).max(axis=2)
-    assert (d > 1e-3).mean() < 0.005
-    assert np.median(d) < 1e-6
-
-
 def test_analytic_nonuniform_scale_normals():
     # Ellipsoid (2,1,1): normals must come from the inverse-transpose.
     s = _sphere_scene()

@@ -1,11 +1,10 @@
-"""BVH and cluster structure tests: structural invariants + traversal
-equivalence (any hit findable through clusters == brute force)."""
+"""BVH structure tests: structural invariants + traversal equivalence
+(the BVH walk finds the brute-force closest hit)."""
 
 import numpy as np
 import pytest
 
 from cosig_tpu.accel.bvh import build_bvh, validate_bvh
-from cosig_tpu.accel.clusters import build_clusters, GEOM_COMPS
 from cosig_tpu.models.scene import (
     BoxDescription,
     CompositeTransformation,
@@ -38,12 +37,12 @@ def test_bvh_invariants_synthetic():
     assert bvh.depth() <= 32  # fits the reference's traversal stack
 
 
-def test_bvh_invariants_reference_scene(reference_scene_dir):
-    tris = extract_triangles(load_scene(str(reference_scene_dir / "test_scene_1.txt")))
+def test_bvh_invariants_demo_scene(demo_scene_path):
+    tris = extract_triangles(load_scene(demo_scene_path))
     bvh = build_bvh(tris)
     validate_bvh(bvh, tris)
-    assert tris.count == 1426
-    assert bvh.triangles.count == 1426
+    assert tris.count == 788
+    assert bvh.triangles.count == 788
 
 
 def test_bvh_empty():
@@ -54,7 +53,7 @@ def test_bvh_empty():
     assert bvh.count[0] == 0
 
 
-def test_bvh_walk_matches_brute(reference_scene_dir):
+def test_bvh_walk_matches_brute(demo_scene_path):
     """The per-ray BVH stack walk (ops/bvh_traverse.py) must agree with
     the brute-force oracle scan on hits and distances."""
     import jax.numpy as jnp
@@ -64,7 +63,7 @@ def test_bvh_walk_matches_brute(reference_scene_dir):
     from cosig_tpu.ops.intersect import closest_hit_brute
     import cosig_tpu
 
-    scene = load_scene(str(reference_scene_dir / "test_scene_1.txt"))
+    scene = load_scene(demo_scene_path)
     tris = extract_triangles(scene)
     arrays = compile_scene(scene, tris)
     bd = bvh_traverse.build_bvh_device(tris)
@@ -93,102 +92,3 @@ def test_bvh_walk_matches_brute(reference_scene_dir):
     d2 = np.abs(img - ref).max(axis=2)
     assert (d2 > 1e-3).mean() < 0.005
     assert np.sqrt(((img - ref) ** 2).mean()) < 1e-3
-
-
-def test_clusters_cover_all_triangles():
-    s, tris = _scene_tris()
-    arrays = compile_scene(s, tris)
-    cs = build_clusters(arrays, tris, k=32)
-    assert cs.num_triangles == tris.count
-    geom = np.asarray(cs.geom)
-    assert geom.shape[1:] == (32, GEOM_COMPS)
-    # Padding rows are all-zero except the GID column, which carries
-    # GID_PAD so the lexicographic tie-break never picks them.
-    from cosig_tpu.accel.clusters import GID, GID_PAD
-
-    is_pad = np.abs(geom[:, :, :GID]).sum(axis=2) == 0
-    real = (~is_pad).sum()
-    assert real == tris.count
-    assert (geom[:, :, GID][is_pad] == GID_PAD).all()
-    # Every cluster's real triangles lie inside its AABB. Vertices are
-    # reconstructed from the Plücker edge w-coefficients:
-    # vc_w = B - A, va_w = C - B (see clusters.py column layout).
-    aabb = np.asarray(cs.aabb_t)
-    from cosig_tpu.accel.clusters import V0, VA, VC
-
-    for c in range(cs.num_clusters):
-        rows = ~is_pad[c]
-        if not rows.any():
-            continue
-        v0 = geom[c, rows, V0 : V0 + 3]
-        v1 = v0 + geom[c, rows, VC + 3 : VC + 6]
-        v2 = v1 + geom[c, rows, VA + 3 : VA + 6]
-        pts = np.concatenate([v0, v1, v2])
-        assert (pts >= aabb[0:3, c] - 1e-4).all()
-        assert (pts <= aabb[3:6, c] + 1e-4).all()
-    # Padded AABB columns are NaN: the slab comparisons reject them for
-    # every ray (an inverted box would NOT be rejected by the
-    # min/max-normalizing slab test).
-    c_pad = aabb.shape[1]
-    for c in range(cs.num_clusters, c_pad):
-        assert np.isnan(aabb[0:6, c]).all()
-
-
-def test_clusters_empty_scene():
-    s = SceneData()
-    arrays = compile_scene(s)
-    cs = build_clusters(arrays)
-    assert cs.num_triangles == 0
-    assert np.isnan(np.asarray(cs.aabb_t)).all()
-
-
-def test_clusters_auto_k(monkeypatch):
-    """k=None picks the cluster size automatically: DEFAULT_K for small
-    cuts, doubled while the cut exceeds AUTO_K_MAX_C clusters (the
-    TPU-measured cull-width crossover — see build_clusters docstring),
-    and the auto build is bit-identical to the explicit-k build."""
-    from cosig_tpu.accel.clusters import AUTO_K_MAX_C, DEFAULT_K
-    from cosig_tpu.models.soa import materials_host
-    from cosig_tpu.scene.generate import CONFIGS
-
-    # The auto-k decision depends on cut width, which the cluster-build
-    # env knobs change; pin them so a sweep-polluted shell can't flip the
-    # hardcoded expectations below.
-    monkeypatch.setenv("COSIG_LEAF_MULT", "4")
-    monkeypatch.setenv("COSIG_CLUSTER_PACK", "1")
-    monkeypatch.setenv("COSIG_PACK_SA", "2.0")
-
-    # Small scene: stays at DEFAULT_K.
-    s, tris = _scene_tris()
-    arrays = compile_scene(s, tris)
-    cs = build_clusters(arrays, tris)
-    assert cs.k == DEFAULT_K
-
-    # large_mesh (11,970 tris): k=32 cuts ~439 clusters > AUTO_K_MAX_C,
-    # so auto doubles to 64 and the cut drops under the threshold.
-    scene, _ = CONFIGS["large_mesh"]()
-    arrays = compile_scene(scene)
-    tris = extract_triangles(scene)
-    mats = np.concatenate(materials_host(scene), axis=1)
-    auto = build_clusters(arrays, tris=tris, mats_host=mats)
-    assert auto.k == 64
-    assert auto.num_clusters <= AUTO_K_MAX_C
-    exp = build_clusters(arrays, tris=tris, mats_host=mats, k=64)
-    assert (np.asarray(auto.geom) == np.asarray(exp.geom)).all()
-    assert (
-        np.asarray(auto.aabb_t)[~np.isnan(np.asarray(auto.aabb_t))]
-        == np.asarray(exp.aabb_t)[~np.isnan(np.asarray(exp.aabb_t))]
-    ).all()
-
-
-def test_clusters_rejects_bad_k():
-    """k <= 0 (e.g. a COSIG_K=0 sweep typo) must fail with a clear
-    message, not an opaque ZeroDivisionError deep in the chunking loop."""
-    import pytest
-
-    s, tris = _scene_tris()
-    arrays = compile_scene(s, tris)
-    with pytest.raises(ValueError, match="cluster size k"):
-        build_clusters(arrays, tris, k=0)
-    with pytest.raises(ValueError, match="cluster size k"):
-        build_clusters(arrays, tris, k=-8)

@@ -9,8 +9,8 @@ from cosig_tpu.utils.png import read_png, write_png
 
 
 @pytest.fixture
-def scene_path(reference_scene_dir):
-    return str(reference_scene_dir / "test_scene_1.txt")
+def scene_path(demo_scene_path):
+    return demo_scene_path
 
 
 def test_render_command(tmp_path, scene_path, capsys):
@@ -38,7 +38,7 @@ def test_render_generated_config(tmp_path, capsys):
 def test_info_command(scene_path, capsys):
     assert main(["info", scene_path]) == 0
     out = capsys.readouterr().out
-    assert "1426" in out
+    assert "788" in out
     assert "BVH" in out
 
 

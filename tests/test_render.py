@@ -1,5 +1,5 @@
 """Render-semantics tests with hand-computable expected values, plus
-low-res smoke renders of the bundled reference scenes.
+low-res smoke renders of the in-repo scene file.
 
 These pin the shading math of compute:360-473 (ambient/diffuse/specular
 terms, shadow test, reflection/refraction attenuation policy) to exact
@@ -192,33 +192,28 @@ def test_multi_light_mode(renderer):
 
 
 # ---------------------------------------------------------------------------
-# Reference scenes, low-res smoke (CPU)
+# The in-repo scene file, low-res smoke (CPU)
 
 
-@pytest.mark.parametrize("name", ["test_scene_1", "test_scene_2", "eval_scene"])
-def test_reference_scene_renders(renderer, reference_scene_dir, name):
-    s = load_scene(str(reference_scene_dir / f"{name}.txt"))
-    img = renderer.render(s, RenderSettings(resolution_override=(48, 48)))
+@pytest.mark.parametrize(
+    "settings",
+    [
+        RenderSettings(resolution_override=(48, 48)),
+        RenderSettings(resolution_override=(48, 48), aa_samples=4,
+                       enable_soft_shadows=True, light_size=5.0),
+        RenderSettings(resolution_override=(48, 48), max_depth=4, multi_light=True),
+    ],
+    ids=["default", "aa4_soft_shadows", "depth4_multi_light"],
+)
+def test_scene_file_renders(renderer, demo_scene_path, settings):
+    s = load_scene(demo_scene_path)
+    img = renderer.render(s, settings)
     assert img.shape == (48, 48, 3)
     assert np.isfinite(img).all()
     assert img.min() >= 0.0
     assert img.std() > 0.05  # non-degenerate content
-    # Corners are background (nothing in the extreme corners of these scenes).
+    # Corners are background (the box does not reach the frame corners).
     np.testing.assert_allclose(img[0, 0], s.image.background, atol=1e-5)
-
-
-def test_huge_scene_streams_geometry(renderer, monkeypatch):
-    """Scenes whose clustered geometry exceeds the VMEM budget stream it
-    from HBM (double-buffered per-cluster DMA) on the Pallas path."""
-    from cosig_tpu.ops import trace_pallas
-    from cosig_tpu.render.renderer import Renderer
-
-    monkeypatch.setattr(trace_pallas, "STREAM_THRESHOLD_BYTES", 1)  # force streaming
-    r = Renderer(backend="pallas")
-    mats = [MaterialDescription(color=(1, 0, 0), ambient=0.5)]
-    s = make_scene(mats, BIG_TRI)
-    img = r.render(s, RenderSettings(max_depth=1, enable_diffuse=False))
-    np.testing.assert_allclose(center_px(img), (0.5, 0.0, 0.0), atol=1e-5)
 
 
 def test_zero_scale_camera_transform_renders(renderer):
